@@ -1,11 +1,11 @@
-"""darwin-tpu: a TPU-native long-read overlapper/aligner (D-SOFT + GACT).
+"""darwin-tpu: a long-read overlapper/aligner (D-SOFT + GACT) in JAX.
 
 A from-scratch reimplementation of the Darwin seed-and-extend aligner
 (D-SOFT diagonal-band seed filtration + GACT constant-memory tiled
-alignment) designed for TPU hardware: the tile dynamic program runs as a
-batched Pallas wavefront kernel on the VPU, candidate filtration is a
-segmented-scan formulation, and scaling is expressed with
-``jax.sharding`` meshes rather than threads/streams.
+alignment) for NVIDIA GPUs: the whole GACT loop runs on the device,
+the tile dynamic program is a CUDA kernel called through jax.ffi,
+candidate filtration is a segmented-scan formulation, and scaling is
+expressed with ``jax.sharding`` meshes rather than threads/streams.
 
 Behavioral reference: Tongdongq/darwin-gpu (C++/CUDA). This package is a
 re-design, not a port: see SURVEY.md at the repo root for the layer map

@@ -24,8 +24,8 @@ Design (one shard_map'd XLA program; all shapes fixed):
 4. the hit exchange routes tuples to their read-owner device
    (contiguous read blocks): either a simple ``all_gather`` (every
    device sees every tuple, P x traffic) or, with ``a2a_cap`` set, an
-   ``all_to_all`` with per-destination budgets — the ICI-efficient
-   pattern; budget overruns flag the affected reads.
+   ``all_to_all`` with per-destination budgets — each tuple crosses
+   the interconnect once; budget overruns flag the affected reads.
 5. per-(read, bin) counting = multi-key stable sort + segmented prefix
    sum + first-threshold-crossing, the same derivation as
    dsoft/filter.py and dsoft/device.py, then per-read compaction into
@@ -355,7 +355,7 @@ def _dsoft_table_sharded_local(queries, qlens, th, tp, *, axis: str,
         a_hit = gather(hit)
     else:
         # all_to_all: tuples routed to their read-owner device only —
-        # the ICI-efficient exchange.  Per-destination budget a2a_cap;
+        # each tuple crosses the interconnect once.  Per-destination budget a2a_cap;
         # overruns flag the affected reads (host fallback), never drop
         # silently.
         owner = jnp.where(tvalid, t_read // R_local, n_shards)

@@ -1,10 +1,11 @@
 """Tile-batch aligner frontends: one call = DP + traceback on device.
 
-Backend dispatch: the Pallas kernel (ops/pallas_dp.py) on TPU, the
-portable lax formulation (ops/reference_dp.py) elsewhere; both share
-the traceback.  Equivalent of the reference's Align_Batch_GPU host
-wrapper (cuda_host.cu:23-190), minus the per-batch marshaling: tiles
-arrive as fixed-shape arrays and results come back as NumPy.
+Backend dispatch by platform: the CUDA kernel (ops/cuda_dp.py) on the
+GPU, the portable lax formulation (ops/reference_dp.py) on the CPU;
+both feed the same packed6 traceback.  Equivalent of the reference's
+Align_Batch_GPU host wrapper (cuda_host.cu:23-190), minus the
+per-batch marshaling: tiles arrive as fixed-shape arrays and results
+come back as NumPy.
 """
 
 from __future__ import annotations
@@ -14,16 +15,49 @@ import dataclasses
 import jax
 import numpy as np
 
-from darwin_tpu.ops.pallas_dp import align_tiles_pallas
 from darwin_tpu.ops.reference_dp import align_tiles_jax
 from darwin_tpu.ops.traceback import (pack_dir_words6,
                                       traceback_packed6_jax)
 
-TPU_PLATFORMS = ("tpu",)
+BACKENDS = ("cuda", "lax")
+_PLATFORM_BACKEND = {"gpu": "cuda", "cpu": "lax"}
 
 
-def default_backend() -> str:
-    return "pallas" if jax.default_backend() in TPU_PLATFORMS else "lax"
+def backend_for(platform: str) -> str:
+    """The tile-DP backend for a JAX platform name."""
+    try:
+        return _PLATFORM_BACKEND[platform]
+    except KeyError:
+        raise RuntimeError(
+            f"no tile-DP backend for platform {platform!r} "
+            f"(supported: {sorted(_PLATFORM_BACKEND)})") from None
+
+
+def resolve_backend(backend: str = "auto") -> str:
+    """Validate a backend name ("auto" = by the default platform) and
+    make it usable: "cuda" builds and registers the kernel, raising if
+    it cannot."""
+    if backend == "auto":
+        backend = backend_for(jax.default_backend())
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown tile-DP backend {backend!r}")
+    if backend == "cuda":
+        from darwin_tpu.ops import cuda_dp
+        cuda_dp.load()
+    return backend
+
+
+def tile_dp_words(backend: str, ref, query, rlen, qlen, *, match: int,
+                  mismatch: int, gap_open: int, gap_extend: int):
+    """Tile DP returning (stats dict, packed6 traceback words)."""
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_extend=gap_extend)
+    if backend == "cuda":
+        from darwin_tpu.ops.cuda_dp import align_tiles_cuda
+        out = align_tiles_cuda(ref, query, rlen, qlen, **kw)
+        return out, out["dir_words"]
+    out = align_tiles_jax(ref, query, rlen, qlen, **kw)
+    return out, pack_dir_words6(out["dir"])
 
 
 @dataclasses.dataclass
@@ -39,35 +73,19 @@ class TileResult:
 class JaxTileAligner:
     def __init__(self, *, tile_size: int, early_terminate: int,
                  match: int, mismatch: int, gap_open: int,
-                 gap_extend: int, backend: str = "auto",
-                 block_b: int = 128):
-        if backend == "auto":
-            backend = default_backend()
+                 gap_extend: int, backend: str = "auto"):
+        backend = resolve_backend(backend)
         self.backend = backend
         self.tile_size = tile_size
         self.early_terminate = early_terminate
-        # The Pallas grid needs the batch to divide into blocks; the
-        # lax path has no constraint.  Callers pass any batch size and
-        # we pad to the block multiple.
-        self.block_b = block_b
 
         def step(ref, query, rlen, qlen, first):
-            # packed6: 2-4 walk steps per gather (measured 14.82 ->
-            # 13.90 ms/step at the bench shape; the op stream carries
+            # packed6: 2-4 walk steps per gather (the op stream carries
             # in-group holes, which the scoring lookback skips).
-            if backend == "pallas":
-                out = align_tiles_pallas(
-                    ref, query, rlen, qlen, match=match,
-                    mismatch=mismatch, gap_open=gap_open,
-                    gap_extend=gap_extend,
-                    block_b=min(block_b, ref.shape[0]),
-                    dir_format="packed6")
-                words = out["dir_words"]
-            else:
-                out = align_tiles_jax(ref, query, rlen, qlen, match=match,
-                                      mismatch=mismatch, gap_open=gap_open,
-                                      gap_extend=gap_extend)
-                words = pack_dir_words6(out["dir"])
+            out, words = tile_dp_words(
+                backend, ref, query, rlen, qlen, match=match,
+                mismatch=mismatch, gap_open=gap_open,
+                gap_extend=gap_extend)
             ops, _mb, i_steps, j_steps = traceback_packed6_jax(
                 words, rlen, qlen, first, out["max_i"],
                 out["max_j"], early_terminate=early_terminate)
@@ -78,29 +96,13 @@ class JaxTileAligner:
 
         self._step = jax.jit(step)
 
-    def _pad(self, B: int) -> int:
-        if self.backend != "pallas":
-            return B
-        bb = min(self.block_b, max(8, B))
-        return -(-B // bb) * bb
-
     def __call__(self, ref_tiles: np.ndarray, query_tiles: np.ndarray,
                  ref_lens: np.ndarray, query_lens: np.ndarray,
                  firsts: np.ndarray) -> TileResult:
-        B = ref_tiles.shape[0]
-        BP = self._pad(B)
-        if BP != B:
-            pad = ((0, BP - B), (0, 0))
-            ref_tiles = np.pad(ref_tiles, pad, constant_values=1)
-            query_tiles = np.pad(query_tiles, pad, constant_values=2)
-            ref_lens = np.pad(ref_lens, (0, BP - B))
-            query_lens = np.pad(query_lens, (0, BP - B))
-            firsts = np.pad(firsts, (0, BP - B))
         ops, i_s, j_s, score, mi, mj = jax.device_get(self._step(
             ref_tiles, query_tiles, ref_lens.astype(np.int32),
             query_lens.astype(np.int32), firsts.astype(bool)))
         return TileResult(
-            ops=np.asarray(ops)[:B], ref_steps=np.asarray(i_s)[:B],
-            query_steps=np.asarray(j_s)[:B],
-            score=np.asarray(score)[:B],
-            max_i=np.asarray(mi)[:B], max_j=np.asarray(mj)[:B])
+            ops=np.asarray(ops), ref_steps=np.asarray(i_s),
+            query_steps=np.asarray(j_s), score=np.asarray(score),
+            max_i=np.asarray(mi), max_j=np.asarray(mj))

@@ -19,7 +19,7 @@ def synth_genome(length: int, rng: np.random.Generator) -> str:
     return _BASES[rng.integers(0, 4, size=length)].tobytes().decode("ascii")
 
 
-def _mutate(seq: np.ndarray, rate: float, rng: np.random.Generator
+def mutate(seq: np.ndarray, rate: float, rng: np.random.Generator
             ) -> np.ndarray:
     """Apply substitutions/insertions/deletions at the given total rate
     (45% sub, 30% ins, 25% del, roughly PBSIM CLR-like)."""
@@ -117,7 +117,7 @@ def sample_reads(genome: str, num_reads: int, read_len: int,
         if comp:
             chunk = (np.frombuffer(b"TGCA", dtype=np.uint8)
                      [np.searchsorted(_BASES, chunk)])[::-1]
-        chunk = _mutate(chunk, error_rate, rng)
+        chunk = mutate(chunk, error_rate, rng)
         name = f"R{i}_{start}_{len(chunk)}" + ("_c" if comp else "")
         reads.append((name, chunk.tobytes().decode("ascii")))
     return reads

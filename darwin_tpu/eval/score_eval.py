@@ -14,7 +14,7 @@ theoretical counterpart).
 Where the reference shells out to an external `ksw` binary
 (.measure_sensitivity_NPBSS.py:136-139), this uses the in-repo
 score-only SW op (ops/swscore.py) — batched, exact, runs on CPU or
-TPU, same affine gap convention as the pipeline.
+GPU, same affine gap convention as the pipeline.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 reference algorithms (align.cpp, seed_pos_table.cpp, gact.cpp).
 
 These are intentionally slow and obvious; every production component
-(vectorized NumPy, pure-JAX, Pallas) is tested against them, and they in
+(vectorized NumPy, pure-JAX, CUDA) is tested against them, and they in
 turn are validated against the reference CPU binary's outputs on the
 checked-in fixtures.
 """

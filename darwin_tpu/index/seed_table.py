@@ -1,7 +1,7 @@
 """Production seed-position index.
 
-Re-design of SeedPosTable (reference seed_pos_table.cpp:46-98) for the
-TPU pipeline.  Differences from the reference that preserve semantics:
+Re-design of SeedPosTable (reference seed_pos_table.cpp:46-98) for this
+pipeline.  Differences from the reference that preserve semantics:
 
 * The reference materializes a dense 4^k+1 CSR index table (1 GiB at
   k=14); we keep the hash-sorted minimizer arrays and use binary search

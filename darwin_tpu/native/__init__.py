@@ -28,7 +28,7 @@ _tried = False
 # -march=native is safe here: the .so is compiled on this machine at
 # first import (and rebuilt whenever the source is newer), never
 # shipped; it lets the compiler vectorize the hash/window-min kernels.
-_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
+_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
               "-funroll-loops", "-march=native", "-Wall"]
 
 

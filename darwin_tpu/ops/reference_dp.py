@@ -1,14 +1,14 @@
 """Batched GACT tile DP as a pure-JAX row wavefront.
 
 This is the portable formulation of the tile aligner: it runs on any
-JAX backend (CPU tests, multi-chip dryruns) and is the semantic twin of
-the Pallas TPU kernel in pallas_dp.py.  Both compute, for a batch of
-tiles, exactly what AlignWithBT's DP loop computes (reference
+JAX backend (CPU tests, multi-device dryruns) and is the plain
+reference for the CUDA kernel in cuda_dp.py.  Both compute, for a batch
+of tiles, exactly what AlignWithBT's DP loop computes (reference
 align.cpp:114-183): the direction matrix, the row-major-last max cell,
 and the anchor-corner score.
 
-Vectorization: one DP row per step (lanes = query axis, sublanes =
-batch).  Two sequential recurrences are broken:
+Vectorization: one DP row per step (the query axis and the batch are
+array axes).  Two sequential recurrences are broken:
 
 * the query-gap (D) in-row recurrence d[j] = max(m[j-1]+go, d[j-1]+ge)
   has the max-plus closed form

@@ -2,7 +2,7 @@
 
 The NPBSS score evaluator (reference .measure_sensitivity_NPBSS.py:136)
 shells out to an external exact aligner (`ksw` from sw_sse2) to score
-"perfect" overlaps.  The TPU-native equivalent is this op: the same row
+"perfect" overlaps.  The in-repo equivalent is this op: the same row
 wavefront as ops/reference_dp.py with no direction matrix and no
 traceback — O(B * LR * LQ) compute, O(B * LQ) memory — so full-length
 read pairs (tens of kb) score exactly in one call, on CPU or on chip.

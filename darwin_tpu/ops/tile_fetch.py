@@ -1,166 +1,59 @@
-"""Pallas tile-span fetch: aligned block DMA + in-VMEM roll extraction.
+"""Tile fetch from the combined sequence banks, in plain JAX.
 
-The GACT engine slices, every iteration, one [B, T] tile per slot out
-of flat sequence banks.  XLA's TPU gather costs ~11 ns per ELEMENT
-regardless of contiguity (measured: a [1024, 320] uint8 tile gather is
-3.8 ms), which made the two per-iteration tile gathers the engine's
-largest non-DP cost.  This kernel exploits that every tile is a
-CONTIGUOUS span:
+The GACT engine reads, every iteration, one [B, T] tile per slot out of
+the sequence banks.  Every tile is a contiguous span:
 
-* the bank is viewed as [groups, 4, ROW] with ROW = 512 (four bank
-  rows per sublane group, so the u8 (4, 128) tiling wastes nothing —
-  a unit sublane dim cost 4x HBM at rest and broke 3 Gb banks);
-* per tile, the two groups covering the span's rows arrive as
-  scalar-prefetch-indexed blocks (Mosaic DMAs them, pipelined across
-  the grid); the span is extracted with a dynamic lane roll (32-bit
-  widened — Mosaic requires it), one static sublane roll for each
-  row's tail, and a static 4-way row select;
-* REVERSED tiles (the engine reads forward-extension tiles
-  back-to-front, align.cpp:130) become forward spans of a reversed
-  copy of the bank appended below the original — same kernel, just a
-  different row index.
+* reverse-extension tiles read [pos-len, pos) forward;
+* forward-extension tiles read [pos, pos+len) back to front
+  (align.cpp:130), which is a forward span of a reversed copy of the
+  bank.  The combined bank holds the padded forward copy followed by
+  its reverse, so both orientations are forward spans of one array.
 
-Measured: 0.97 ms per [1024, 320] fetch batch vs 3.77 ms XLA gather.
-
-The public helper returns (combined_bank3d, GP) at construction and a
-jitted fetch(row, off) -> [B, TP] uint8; masking beyond the per-tile
-length stays with the caller (1 vector op).
+Banks of 2^31 bytes or more (a 3.1 Gb reference's combined bank is
+~6.4 GB) cannot be indexed with int32 offsets, so the bank is viewed as
+[rows, ROW] and a span start travels as (row, byte-in-row): every index
+the device computes stays int32.  The fetch is one XLA gather over that
+2-D view; masking beyond each tile's length stays with the caller.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from darwin_tpu.utils import round_up as _round_up
+from darwin_tpu.utils import round_up
 
 ROW = 512
-GROUP = 4           # bank rows per sublane group (u8 tile height)
-TILES_PER_STEP = 8
 
 
 def build_combined_bank(flat: np.ndarray, pad_byte: int
                         ) -> tuple[np.ndarray, int]:
-    """[groups, GROUP, ROW] uint8 bank: padded flat copy, then its
-    reverse, then one margin group.  Returns (bank3d, GP) where GP is
-    the padded forward length (the reverse copy starts at GP).
-
-    The group axis exists purely for HBM economics: a [rows, 1, ROW]
-    u8 array is tiled (4, 128) on its last two dims, so the unit
-    sublane dim is padded 4x at rest — a 3 Gb combined bank ballooned
-    to 34 GB and killed the 16 GB chip (round 4).  [*, 4, ROW] uses
-    all four sublanes: the bank costs exactly its bytes."""
-    GP = _round_up(max(1, len(flat)), ROW)
-    fwd = np.full(GP, pad_byte, dtype=np.uint8)
-    fwd[: len(flat)] = flat
-    rev = fwd[::-1]
-    gbytes = GROUP * ROW
-    total = _round_up(2 * GP, gbytes) + gbytes  # spare group: row+1 ok
-    margin = np.full(total - 2 * GP, pad_byte, dtype=np.uint8)
-    combined = np.concatenate([fwd, rev, margin])
-    return combined.reshape(-1, GROUP, ROW), GP
+    """[rows, ROW] uint8 bank: the padded forward copy, then its
+    reverse.  Returns (bank2d, GP), GP being the padded forward length
+    (the reverse copy starts at GP)."""
+    GP = round_up(max(1, len(flat)), ROW)
+    bank = np.full(2 * GP, pad_byte, dtype=np.uint8)
+    bank[: len(flat)] = flat
+    bank[GP:] = bank[:GP][::-1]
+    return bank.reshape(-1, ROW), GP
 
 
-def build_combined_bank_device(flat: np.ndarray, pad_byte: int):
-    """Host-assembled combined bank uploaded in one device_put.
-
-    Assembling on device (upload forward half only, reverse + concat
-    on device) measured 42 s for a 50 MB bank even warm — XLA lowers
-    the big 1-D uint8 reverse catastrophically — while device_put
-    streams at ~25 MB/s over the same link, so uploading both copies
-    host-assembled wins by an order of magnitude."""
-    bank, GP = build_combined_bank(flat, pad_byte)
-    return jax.device_put(bank), GP
-
-
-def span_starts(starts, lengths, reverse, GP: int):
-    """Combined-bank span starts for the engine's tile reads.
-
-    reverse (pre-swap "reverse extension") tiles read [pos-len, pos)
-    forward: span = starts.  Forward tiles read [pos, pos+len)
-    back-to-front: out[k] = bank[pos + len - 1 - k] = rev_copy at
-    GP - pos - len, offset by the copy's base GP.
-    """
-    fwd_read = starts  # caller passes pos-len for reverse tiles
-    rev_read = 2 * GP - starts - lengths
-    return jnp.where(reverse, fwd_read, rev_read)
+def tile_indices(row: jnp.ndarray, rem: jnp.ndarray, n_rows: int,
+                 T: int) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """[B, T] (bank row, byte-in-row) int32 indices of the spans that
+    start at (row, rem).  Starts are clipped into the bank, so padding
+    slots with arbitrary starts read valid memory (their bytes are
+    masked by the caller)."""
+    rem = jnp.clip(rem.astype(jnp.int32), 0, ROW - 1)
+    off = rem[:, None] + jnp.arange(T, dtype=jnp.int32)[None, :]
+    r = jnp.clip(row.astype(jnp.int32)[:, None] + off // ROW, 0,
+                 n_rows - 1)
+    return r, off % ROW
 
 
-@functools.partial(jax.jit, static_argnames=("T", "n_rows", "interpret"))
-def fetch_tiles(eff_row, eff_off, bank3d, *, T: int, n_rows: int,
-                interpret: bool = False):
-    """eff_row/eff_off: [B] int32 span starts as (bank row, byte within
-    row) — split addressing so banks beyond 2^31 bytes stay int32-safe
-    on device (rows cap at bytes/512).  Returns [B, TP] uint8 where
-    TP = T rounded up to 128 lanes (tail lanes are bank bytes, callers
-    mask).  B must be a multiple of 8."""
-    B = eff_row.shape[0]
-    TP = _round_up(T, 128)
-    assert TP <= ROW, (T, ROW)  # span fits one extracted 512-byte row
-    assert B % TILES_PER_STEP == 0, B
-    C = TILES_PER_STEP
-    grid = (B // C,)
-    n_groups = n_rows  # bank3d.shape[0]: [groups, GROUP, ROW]
-
-    def kernel(row_ref, off_ref, *refs):
-        blocks = refs[: 2 * C]
-        out_ref = refs[2 * C]
-        b = pl.program_id(0)
-        for t in range(C):
-            # Two 4-row groups cover rows g*4 .. g*4+7 — always both
-            # rows of any span starting in group g.  Select the span's
-            # two source rows FIRST (static single-sublane slices +
-            # 3-way selects), then run the original cheap [1, 1024]
-            # concat + dynamic lane roll — the row-select adds ~10
-            # small vector ops; rolling the full [8, 512] block
-            # instead measured 40x slower.
-            xa = blocks[2 * t][0].astype(jnp.int32)   # [GROUP, ROW]
-            xb = blocks[2 * t + 1][0].astype(jnp.int32)
-            row = row_ref[b * C + t]
-            p = row % GROUP
-            off = off_ref[b * C + t]
-            # Row-select via sublane-masked sums, NOT x[i:i+1] slices:
-            # sliced rows keep a sublane-offset layout that the lane
-            # concat below rejects ("offset mismatch on non-concat
-            # dimension"), while reductions land at offset 0.
-            subl = jax.lax.broadcasted_iota(jnp.int32, (GROUP, ROW), 0)
-            r0 = jnp.sum(jnp.where(subl == p, xa, 0), axis=0,
-                         keepdims=True)
-            r1 = (jnp.sum(jnp.where(subl == p + 1, xa, 0), axis=0,
-                          keepdims=True)
-                  + jnp.sum(jnp.where((subl == 0) & (p == GROUP - 1),
-                                      xb, 0), axis=0, keepdims=True))
-            span = jnp.concatenate([r0, r1], axis=1)  # [1, 2*ROW]
-            rolled = pltpu.roll(span, -off, 1)
-            out_ref[t: t + 1, :] = rolled[:, :TP].astype(jnp.uint8)
-
-    def mk_spec(t, second):
-        def imap(b, row, off):
-            return (row[b * C + t] // GROUP + second, 0, 0)
-        return pl.BlockSpec((1, GROUP, ROW), imap,
-                            memory_space=pltpu.VMEM)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[mk_spec(t, s) for t in range(C) for s in (0, 1)],
-        out_specs=pl.BlockSpec((C, TP), lambda b, row, off: (b, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    # Clip defensively: padding slots may carry arbitrary starts.  The
-    # highest legal row keeps group g+1 in range (the builder appends
-    # a spare margin group).
-    row = jnp.clip(eff_row.astype(jnp.int32), 0,
-                   GROUP * (n_groups - 1) - 1)
-    off = jnp.clip(eff_off.astype(jnp.int32), 0, ROW - 1)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, TP), jnp.uint8),
-        interpret=interpret,
-    )(row, off, *([bank3d] * (2 * C)))
+def fetch_tiles(row: jnp.ndarray, rem: jnp.ndarray, bank2d: jnp.ndarray,
+                *, T: int) -> jnp.ndarray:
+    """row/rem: [B] int32 span starts as (bank row, byte within row).
+    Returns [B, T] uint8: out[b, k] = bank byte row*ROW + rem + k."""
+    r, c = tile_indices(row, rem, bank2d.shape[0], T)
+    return bank2d[r, c]

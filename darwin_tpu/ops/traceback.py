@@ -116,9 +116,8 @@ def pack_dir_words(dirm: jnp.ndarray) -> jnp.ndarray:
     """[B, T, C] uint8 dir matrix -> [B, T, C] int32 traceback words.
 
     words[b, r, c] = D(r,c) | D(r,c+1)<<8 | D(r-1,c)<<16 | D(r-1,c+1)<<24
-    (missing neighbours read 0).  The Pallas kernel emits this layout
-    directly (dir_format="packed"); this helper produces it from the
-    byte matrix for the lax path and for differential tests.
+    (missing neighbours read 0): the layout of the 2-step walker (traceback_packed_jax); the lax
+    path and differential tests use it.
     """
     d = dirm.astype(jnp.int32)
     right = jnp.pad(d[:, :, 1:], ((0, 0), (0, 0), (0, 1)))
@@ -140,8 +139,8 @@ def pack_dir_words6(dirm: jnp.ndarray) -> jnp.ndarray:
     as pack_dir_words (current cell + all three move targets); the two
     extra fields are the MM and MMM diagonal cells (i-2,j-2) and
     (i-3,j-3), so a walker on a match run advances up to FOUR steps per
-    gather (traceback_packed6_jax).  The Pallas kernel emits this
-    layout directly (dir_format="packed6").
+    gather (traceback_packed6_jax).  The CUDA kernel
+    (ops/cuda_dp.py) emits this layout directly.
     """
     d = dirm.astype(jnp.int32)
     right = jnp.pad(d[:, :, 1:], ((0, 0), (0, 0), (0, 1)))
@@ -165,8 +164,8 @@ def traceback_packed6_jax(words: jnp.ndarray, ref_len: jnp.ndarray,
     moves were diagonal the word also carries the (i-2,j-2) byte, so a
     third step resolves in the same iteration, and a third diagonal
     move exposes (i-3,j-3) for a fourth.  Per-gather cost is unchanged
-    (one [B] int32 gather — measured throughput-bound, see
-    BENCH_NOTES); match-run-heavy walks need ~2x fewer gathers.
+    (one [B] int32 gather); match-run-heavy walks need ~2x fewer
+    gathers.
 
     Variable advance leaves up to two zero slots inside a lane's
     4-slot group; consumers treat zeros as skips (the scoring lookback
@@ -179,9 +178,9 @@ def traceback_packed6_jax(words: jnp.ndarray, ref_len: jnp.ndarray,
     walkers are still pending (walkers retire at a ZERO op or when
     either axis hits early_terminate, align.cpp:188), the survivors
     are compacted into a compact_b-lane batch, and the tail runs at
-    that width — the per-iteration [B] gather is lane-throughput-bound
-    (~11 ns/lane, BENCH_NOTES), so the tail iterations cost
-    compact_b/B of the full-width ones.  The op stream is merged back
+    that width — when the per-iteration [B] gather is bound by lane
+    throughput, the tail iterations cost compact_b/B of the
+    full-width ones.  The op stream is merged back
     into the survivors' original lanes at the slots after the phase-1
     groups, so outputs are bit-identical to compact_b=0.
     """

@@ -5,7 +5,7 @@ owning a contiguous read range and its own output file
 (darwin.cpp:619-632, per-thread darwin.<cpu_id>.out at darwin.cpp:174,
 merged offline with `cat darwin.*.out | sort | uniq`, README:25).
 
-The TPU-native multi-host equivalent keeps exactly that decomposition,
+The multi-host equivalent here keeps exactly that decomposition,
 host-sized: every process (host) in a `jax.distributed` job
 
 1. parses the same reference + reads FASTA (deterministic, cheap next
@@ -58,12 +58,38 @@ def maybe_initialize(coordinator_address: str | None = None,
     # client) — the job fails loudly instead of hanging at the merge
     # all-gather.  DARWIN_TPU_HEARTBEAT_S tightens the window.
     heartbeat = int(os.environ.get("DARWIN_TPU_HEARTBEAT_S", "100"))
+    if local_device_ids is None:
+        local_device_ids = pinned_device_ids(coordinator_address,
+                                             process_id)
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes, process_id=process_id,
         local_device_ids=local_device_ids,
         heartbeat_timeout_seconds=heartbeat)
     return jax.process_count() > 1
+
+
+def pinned_device_ids(coordinator_address: str | None,
+                      process_id: int | None) -> list[int] | None:
+    """The one card this process should own when several processes
+    share a host, else None (all local cards).
+
+    A JAX process reserves most of every card it can see, so processes
+    on one host must each see one card.  The local rank comes from
+    JAX_LOCAL_DEVICE_IDS (JAX's own override, left to JAX), LOCAL_RANK
+    (set by common launchers), or, when the coordinator is on this
+    host's loopback address, the process id itself.
+    """
+    if os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        return None
+    if os.environ.get("LOCAL_RANK"):
+        return [int(os.environ["LOCAL_RANK"])]
+    host = (coordinator_address or "").rsplit(":", 1)[0].strip("[]")
+    if process_id is not None and (host == "localhost"
+                                   or host.startswith("127.")
+                                   or host == "::1"):
+        return [int(process_id)]
+    return None
 
 
 def process_count() -> int:
@@ -104,7 +130,7 @@ def allgather_records(records: list[str]) -> list[str]:
     Single-process: plain `sorted(set(...))`.  Multi-process: each
     process newline-joins its records into ONE byte blob, blobs are
     padded to the global max blob size (process_allgather needs equal
-    shapes), all-gathered over DCN/ICI, split, and reduced with the
+    shapes), all-gathered across processes, split, and reduced with the
     same `sorted(set(...))` — byte-identical on every host, and to the
     reference's offline `sort | uniq` merge.
 

@@ -1,7 +1,7 @@
 """Multi-device scaling via jax.sharding meshes.
 
 The reference scales with pthreads on one GPU (darwin.cpp:619-632,
-one CUDA stream per thread); the TPU-native equivalents here are:
+one CUDA stream per thread); the equivalents here are:
 
 * data parallelism over tiles: the engine's tile batch is sharded
   across a 1-D 'data' mesh with shard_map — each device runs the DP
@@ -9,12 +9,11 @@ one CUDA stream per thread); the TPU-native equivalents here are:
 * data parallelism over reads across hosts: each host's process runs
   D-SOFT + engine on its read range (see parallel/distributed.py);
 * deterministic overlap merge: per-device record tensors are
-  all-gathered over ICI and sorted, reproducing the reference's
+  all-gathered across the mesh and sorted, reproducing the reference's
   `cat darwin.*.out | sort | uniq` merge semantics on device.
 
-The seed table is replicated (E.coli-scale genomes); genome-sharded
-lookup with ppermute hit exchange is the planned path for human-scale
-references.
+The seed table is replicated here; the hash-sharded table with an
+all_to_all hit exchange lives in dsoft/sharded_table.py.
 """
 
 from __future__ import annotations
@@ -26,11 +25,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from darwin_tpu.engine.aligner import TileResult, default_backend
-from darwin_tpu.ops.pallas_dp import align_tiles_pallas
-from darwin_tpu.ops.reference_dp import align_tiles_jax
-from darwin_tpu.ops.traceback import (pack_dir_words6,
-                                      traceback_packed6_jax)
+from darwin_tpu.engine.aligner import (TileResult, resolve_backend,
+                                      tile_dp_words)
+from darwin_tpu.ops.traceback import traceback_packed6_jax
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
@@ -41,31 +38,21 @@ def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
 
 def sharded_tile_step(mesh: Mesh, *, early_terminate: int, match: int,
                       mismatch: int, gap_open: int, gap_extend: int,
-                      backend: str = "auto", block_b: int = 128):
+                      backend: str = "auto"):
     """Jitted batch-sharded DP + traceback step.
 
     Returns fn(ref_tiles[B,T], query_tiles, rlens, qlens, firsts) with B
     sharded over the mesh's data axis; per-device work is the plain
-    single-chip kernel (shard_map), so the Pallas kernel runs unmodified
-    on each device.
+    single-device kernel (shard_map), so the kernel runs unmodified on
+    each device.
     """
-    if backend == "auto":
-        backend = default_backend()
+    backend = resolve_backend(backend)
     axis = mesh.axis_names[0]
 
     def local_step(ref, query, rlen, qlen, first):
-        if backend == "pallas":
-            out = align_tiles_pallas(
-                ref, query, rlen, qlen, match=match, mismatch=mismatch,
-                gap_open=gap_open, gap_extend=gap_extend,
-                block_b=min(block_b, ref.shape[0]),
-                dir_format="packed6")
-            words = out["dir_words"]
-        else:
-            out = align_tiles_jax(
-                ref, query, rlen, qlen, match=match, mismatch=mismatch,
-                gap_open=gap_open, gap_extend=gap_extend)
-            words = pack_dir_words6(out["dir"])
+        out, words = tile_dp_words(
+            backend, ref, query, rlen, qlen, match=match,
+            mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend)
         ops, _mb, i_steps, j_steps = traceback_packed6_jax(
             words, rlen, qlen, first, out["max_i"], out["max_j"],
             early_terminate=early_terminate)
@@ -87,31 +74,24 @@ class ShardedTileAligner:
     """Engine-compatible aligner that shards the tile batch over a mesh.
 
     Drop-in for JaxTileAligner: the engine stays oblivious to device
-    count.  Batch is padded to n_devices * block multiple.
+    count.  Batch is padded to a multiple of the device count.
     """
 
     def __init__(self, mesh: Mesh, *, tile_size: int,
                  early_terminate: int, match: int, mismatch: int,
-                 gap_open: int, gap_extend: int, backend: str = "auto",
-                 block_b: int = 128):
+                 gap_open: int, gap_extend: int, backend: str = "auto"):
         self.mesh = mesh
         self.n_dev = mesh.devices.size
         self.tile_size = tile_size
         self.early_terminate = early_terminate
-        if backend == "auto":
-            backend = default_backend()
-        self.backend = backend
-        self.block_b = block_b
+        self.backend = resolve_backend(backend)
         self._step = sharded_tile_step(
             mesh, early_terminate=early_terminate, match=match,
             mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend,
-            backend=backend, block_b=block_b)
+            backend=self.backend)
 
     def _pad(self, B: int) -> int:
-        unit = self.n_dev
-        if self.backend == "pallas":
-            unit *= min(self.block_b, max(8, -(-B // self.n_dev)))
-        return -(-B // unit) * unit
+        return -(-B // self.n_dev) * self.n_dev
 
     def __call__(self, ref_tiles, query_tiles, ref_lens, query_lens,
                  firsts) -> TileResult:

@@ -1,6 +1,12 @@
-"""Small shared helpers (shape bucketing / alignment)."""
+"""Small shared helpers (shape bucketing / alignment, compile cache)."""
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
+
+# The checkout (or install) root: the directory holding darwin_tpu/.
+CHECKOUT = Path(__file__).resolve().parent.parent
 
 
 def round_up(x: int, m: int) -> int:
@@ -33,3 +39,20 @@ def bucket_steps(n: int, lo: int = 64) -> int:
             return b * 3 // 2
         b *= 2
     return b
+
+
+def configure_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its path.
+
+    When JAX_COMPILATION_CACHE_DIR is set, JAX already reads it and
+    nothing is set here.  Otherwise the cache lives at the fixed path
+    <checkout>/.jax_cache (the path is part of the cache key, so it
+    must not move between runs)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = str(CHECKOUT / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -44,11 +44,10 @@ FIXTURES = {
     # (N packs to 0='A' in seeding but stays N in DP char compares,
     # ntcoding.cpp:56-69 vs align.cpp:134 — a dedicated parity hazard).
     "nbase": (150_000, 24, 6_000, 0.08, 0.4, {"inject_n": True}),
-    # The TPU production tile geometry (configs/tpu.cfg): tile_size
-    # chosen so the Pallas kernel's padded lane axis is nearly full
-    # (377/384 lanes useful).  Oracle comes from the reference binary
-    # running the same tile_size (an ordinary params.cfg knob,
-    # reference darwin.cpp:491).
+    # A non-default tile geometry (tile_size=376): parity at a tile
+    # size other than the reference default.  Oracle comes from the
+    # reference binary running the same tile_size (an ordinary
+    # params.cfg knob, reference darwin.cpp:491).
     "tpucfg": (150_000, 24, 8_000, 0.10, 0.4, {"tile_size": 376}),
 }
 

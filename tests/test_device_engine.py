@@ -154,10 +154,10 @@ def test_two_tier_drain_matches_host_engine(tb_format):
 
 def test_drain_auto_gate_calibration():
     """The auto drain gate (slot-pool tail simulation) must match the
-    measured calibration points: OFF at near-uniform read lengths
-    (E.coli shape — the drain regressed the align phase 462 -> 582 ms,
-    tools/drain_ecoli.py round 5) and ON under harsh depth skew (the
-    16:1 workload the drain measurably wins, the test above)."""
+    calibration points it was fitted on (on another accelerator; not
+    yet re-fitted on the GPU): OFF at near-uniform read lengths (the
+    E.coli shape, where the drain lost) and ON under harsh depth skew
+    (the 16:1 workload the drain won, the test above)."""
     import numpy as np
 
     from darwin_tpu.engine.device_batch import (DRAIN_MIN_TAIL_FRAC,
@@ -178,8 +178,8 @@ def test_drain_auto_gate_calibration():
     skew = rng.integers(17, 53, size=600)
     skew[::16] = 252
     assert gate(skew, 256)
-    # Moderate skew at a big pool (the round-3 drain_prof synthetic,
-    # measured a wash): 15% x 50-iter, 85% x 10-iter, B=2048.
+    # Moderate skew at a big pool (the drain_prof synthetic, a wash
+    # when measured): 15% x 50-iter, 85% x 10-iter, B=2048.
     moderate = np.where(rng.random(3000) < 0.15, 52, 12)
     assert not gate(moderate, 2048)
 

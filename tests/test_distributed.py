@@ -155,3 +155,39 @@ def test_abort_propagation_peer_death(data_dir, tmp_path):
         p0.communicate()
         pytest.fail("survivor hung instead of aborting on peer death")
     assert p0.returncode != 0, f"survivor exited 0:\n{out[-1000:]}"
+
+
+@pytest.mark.parametrize("coord,pid,want", [
+    ("localhost:1234", 3, [3]), ("127.0.0.1:9934", 1, [1]),
+    ("[::1]:9934", 0, [0]), ("10.0.0.7:9934", 2, None)])
+def test_pinned_device_ids_one_card_per_local_process(
+        monkeypatch, coord, pid, want):
+    """Processes on one host (loopback coordinator) each own one card;
+    a remote coordinator leaves every local card visible."""
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("JAX_LOCAL_DEVICE_IDS", raising=False)
+    assert dist.pinned_device_ids(coord, pid) == want
+
+
+def test_pinned_device_ids_launcher_rank(monkeypatch):
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    monkeypatch.delenv("JAX_LOCAL_DEVICE_IDS", raising=False)
+    assert dist.pinned_device_ids("10.0.0.7:9934", 5) == [2]
+    monkeypatch.setenv("JAX_LOCAL_DEVICE_IDS", "0,1")
+    assert dist.pinned_device_ids("localhost:1", 1) is None  # JAX's own
+
+
+def test_maybe_initialize_pins_local_card(monkeypatch):
+    """--distributed with several processes on one host passes one
+    local device id per process to jax.distributed.initialize."""
+    import jax
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("JAX_LOCAL_DEVICE_IDS", raising=False)
+    dist.maybe_initialize("localhost:9999", 4, 3)
+    assert seen["local_device_ids"] == [3]
+    assert seen["num_processes"] == 4 and seen["process_id"] == 3

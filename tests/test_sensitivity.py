@@ -1,5 +1,5 @@
 """Accuracy evaluation: the sensitivity/specificity harness itself and
-an end-to-end accuracy gate on the noisy fixture (the TPU analogue of
+an end-to-end accuracy gate on the noisy fixture (the counterpart of
 the reference flow README:22-26 -> measure_sensitivity_PBSIM.py)."""
 
 from __future__ import annotations

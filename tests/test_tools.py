@@ -49,9 +49,9 @@ def test_mem_usage_device_mode(tmp_path):
 @pytest.mark.slow
 def test_bigcoord_dryrun_smoke_both_engines(tmp_path):
     """Tiny-scale run of the >2^31 coordinate dry-run tool on both the
-    host batch engine and the whole-loop device engine (gather path on
-    CPU; the TPU span-fetch variant of the same script is the manual
-    >2^31 run documented in docs/ROADMAP.md)."""
+    host batch engine and the whole-loop device engine (lax backend on
+    the CPU; the same script with the CUDA kernel is the manual >2^31
+    run on a GPU)."""
     for engine in ("host", "device"):
         r = subprocess.run(
             [sys.executable, str(REPO / "tools/bigcoord_dryrun.py"),

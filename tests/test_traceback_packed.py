@@ -1,7 +1,7 @@
 """Packed-word traceback must be bit-identical to the byte walk.
 
 traceback_packed_jax advances two steps per gather from the packed
-word matrix (pack_dir_words / the Pallas kernel's dir_format="packed");
+word matrix (pack_dir_words);
 every output (ops stream, match bits, step counts) must equal
 traceback_jax's on the same tiles.
 """

@@ -10,8 +10,8 @@ re-maps to its sampled origin.
 This validates the int64 host-side coordinate path end-to-end; the
 device engine's split (row, rem) bank addressing for >2^31 banks is
 covered per-op by tests/test_tile_fetch.py and end-to-end here with
---engine device (the whole-loop engine on the real banks; run on the
-TPU for the production fetch path, or on CPU with --backend lax).
+--engine device (the whole-loop engine on the real banks: on the GPU
+with the CUDA kernel, or on CPU with --backend lax).
 
 Usage: python tools/bigcoord_dryrun.py [--gb 2.4] [--pieces 10]
          [--engine host|device] [--backend auto|lax]

@@ -1,6 +1,6 @@
 """Memory observability: host RSS polling + device memory stats.
 
-TPU analogue of the reference's y_measure_mem_usage.sh (RSS polling via
+Counterpart of the reference's y_measure_mem_usage.sh (RSS polling via
 /proc) plus the GPU-free-memory print in cuda_host.cu:230-232.
 
 Usage:

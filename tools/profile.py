@@ -1,9 +1,10 @@
 """Profiling harness: JAX device traces + phase timing + GCUPS.
 
-The TPU analogue of the reference's profiling tooling (profile.sh's
+The counterpart of the reference's profiling tooling (profile.sh's
 nvprof metric collection, gprof hooks, TIME-flag phase splits): runs
-the kernel or the end-to-end pipeline under jax.profiler and prints a
-phase/GCUPS summary.
+the tile step or the end-to-end pipeline under jax.profiler and prints
+a phase/GCUPS summary.  On the CPU the numbers describe XLA's CPU
+backend, not the GPU.
 
 Usage:
     python tools/profile.py kernel [--trace-dir /tmp/trace] [B] [T]
@@ -42,7 +43,7 @@ def profile_kernel(args) -> None:
     import jax
     import jax.numpy as jnp
 
-    from darwin_tpu.ops.pallas_dp import align_tiles_pallas
+    from darwin_tpu.engine.aligner import resolve_backend, tile_dp_words
     from darwin_tpu.ops.traceback import traceback_packed6_jax
 
     B, T = args.B, args.T
@@ -55,13 +56,13 @@ def profile_kernel(args) -> None:
     rlen = np.full(B, T, np.int32)
     firsts = np.zeros(B, bool)
     kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+    backend = resolve_backend()
 
     @jax.jit
     def step(r, q):
-        out = align_tiles_pallas(r, q, rlen, rlen, dir_format="packed6",
-                                 **kw)
+        out, words = tile_dp_words(backend, r, q, rlen, rlen, **kw)
         ops, _mb, i_s, j_s = traceback_packed6_jax(
-            out["dir_words"], rlen, rlen, firsts, out["max_i"],
+            words, rlen, rlen, firsts, out["max_i"],
             out["max_j"], early_terminate=200)
         return (ops.astype(jnp.int32).sum() + i_s.sum() + j_s.sum()
                 + out["max_score"].sum())
@@ -89,8 +90,8 @@ def profile_pipeline(args) -> None:
     reads = ref if args.reference == args.reads else parse_fasta(args.reads)
     same = args.reference == args.reads
 
-    from darwin_tpu.engine.aligner import default_backend
-    engine = "device" if default_backend() == "pallas" else "host"
+    import jax
+    engine = "device" if jax.default_backend() == "gpu" else "host"
     run_pipeline(ref, reads, params, same_file=same, engine=engine,
                  batch_size=args.batch_size)  # warm/compile
     best, best_m, best_res = None, None, None

@@ -1,14 +1,14 @@
 """Sharded-table D-SOFT at realistic scale on the 8-device CPU mesh.
 
-VERDICT r3 ask #1: run dsoft/sharded_table.py against an E.coli-scale
+Runs dsoft/sharded_table.py against an E.coli-scale
 reference (>= 4.6 Mb table) with 10 kb reads; check host-engine parity
 (dsoft/filter.py, itself golden-differential tested), measure tuple /
 candidate / per-destination maxima, derive (not guess) the tup_max /
 cand_max / a2a_cap budgets via derive_budgets, and compare the
 all_gather exchange against all_to_all on wall + traffic.
 
-Runs on the CPU backend with 8 virtual devices (one process, no TPU
-client), so it can run alongside chip work.
+Runs on the CPU backend with 8 virtual devices (one process, no GPU),
+so it can run alongside chip work.
 
 Usage: python tools/sharded_scale.py [--genome 4600000] [--reads 64]
            [--read-len 10000] [--shards 8] [--json OUT]
